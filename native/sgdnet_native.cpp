@@ -2,7 +2,7 @@
 //
 // The reference implements its entire core in C++ (reference src/, ~2.1k
 // LoC of header-only Eigen templates).  In this framework the *compute*
-// path is JAX/XLA/Pallas on TPU, and the native layer instead covers what
+// path is JAX/XLA on the accelerator, and the native layer instead covers what
 // actually belongs off-device: wide-row data ingestion and layout packing
 // that feed the padded-CSR device format.  Exposed via a plain C ABI and
 // loaded with ctypes (no pybind11 dependency).

@@ -20,7 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from sgdnet_tpu.api.fit import SgdnetFit, fit as fit_fn
+from sgdnet_tpu.api.fit import SgdnetFit, at_highest_precision, fit as fit_fn
 from sgdnet_tpu.api.score import score as score_fn
 
 
@@ -121,6 +121,7 @@ def _find_optimum(lambdas, means, sds, maximize=False):
     return ind, float(lambdas[ind]), lambda_1se, float(means[ind])
 
 
+@at_highest_precision
 def cv_fit(
     x,
     y,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from sgdnet_tpu.api.fit import at_highest_precision
 from sgdnet_tpu.core.sparse import HybridCSR, PaddedCSR
 
 
@@ -57,6 +58,7 @@ def _nonzero_bystep(beta_k: np.ndarray):
     return [np.flatnonzero(np.abs(beta_k[l]) > 0) for l in range(beta_k.shape[0])]
 
 
+@at_highest_precision
 def predict(
     fit,
     newx=None,

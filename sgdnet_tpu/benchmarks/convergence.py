@@ -86,9 +86,9 @@ def convergence_curve(
 def convergence_curve_trace(
     x, y, family="gaussian", alpha=1.0, maxit=1000, n_points=28, **fit_kwargs
 ):
-    """One-dispatch loss-vs-time curve at lambda = 1/n (round 4, VERDICT r3
-    #3): instead of refitting once per tolerance point (each refit paying
-    the ~25 ms relay sync floor 3-4 times), derive the WHOLE curve from
+    """One-dispatch loss-vs-time curve at lambda = 1/n: instead of refitting
+    once per tolerance point (each refit paying its fixed dispatch and
+    readback cost), derive the WHOLE curve from
 
       * one `debug=True` fit whose per-epoch loss trace (saga.py epoch
         losses) gives loss(e) for every epoch e in a single dispatch, and
@@ -112,7 +112,7 @@ def convergence_curve_trace(
     walls, epochs_meas = [], []
     for thresh in (1e-3, 0.05):
         best = (np.inf, 1)
-        for _ in range(2):  # best-of-2: the relay's run-to-run variance
+        for _ in range(2):  # best-of-2 against run-to-run variance
             t0 = time.perf_counter()
             f = fit(x, y, maxit=maxit, thresh=thresh, **base)
             w = time.perf_counter() - t0

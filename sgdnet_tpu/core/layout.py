@@ -1,38 +1,30 @@
-"""Hybrid-layout planner: pick the dense-head width from the measured
-v5e cost model.
+"""Hybrid-layout planner: pick the dense-head width from a measured cost
+model.
 
 The dense-head/sparse-tail split (core/sparse.py HybridCSR) has one free
-parameter that matters: the head width D.  Its economics were measured in
-round 2 (RESULTS.md):
+parameter that matters: the head width D.  Its economics:
 
   * the head streams  (2 + 1/refresh) * n_pad * D * itemsize  bytes per
-    epoch through HBM at the chip's sustained dense-load rate
-    (~430-455 GB/s measured on v5e through this runtime), independent of
-    how many of those values are real nonzeros;
-  * every tail entry costs ~4 serialized gather/scatter element-ops at
-    ~9.6 ns each (forward gather+scatter, outer gather+scatter).
+    epoch through device memory at the sustained rate of the solver's head
+    step, independent of how many of those values are real nonzeros;
+  * every tail entry costs ~4 gather/scatter element-ops (forward gather +
+    scatter, outer gather + scatter) at the packed BlockCOO tail's cost
+    per element.
 
 So a column belongs in the head when its total nonzero count exceeds
-    break_even = passes * n_pad * itemsize / stream / (4 * elem_ns)
-(~13 nonzeros per column for an int8 head at n = 100k), and the optimal D
-is where the column-popularity curve crosses that line.  `plan_layout`
-computes it exactly from the column counts, subject to an HBM budget.
+    break_even = passes * n_pad * itemsize / stream / (4 * elem_op_s)
+(~690 nonzeros per column for an int8 head at n = 100k with the constants
+below), and the optimal D is where the column-popularity curve crosses
+that line.  `plan_layout` computes it exactly from the column counts,
+subject to a device-memory budget.
 
 `fit(hybrid_max_head="auto")` calls this; the explicit function is public
 for planning without fitting.
 
-Two-level heads (planner v2) were evaluated against this cost model and
-REJECTED analytically: a second bfloat16 "warm" level would admit columns
-whose count clears the bf16 break-even (passes*n_pad*2/stream / (4*elem)
-~= 27 nnz at the bench shape), but every such column already clears the
-int8 break-even (~14 nnz) and int8 storage streams HALF the bytes at the
-same sustained rate with on-chip-validated convergence (RESULTS.md,
-tools/validate_bf16.py).  Storage levels are totally ordered by stream
-cost here, so "int8 hot + bf16 warm" is strictly dominated by simply
-widening the int8 head — predicted gain <= 0, well under the >= 10%
-pursuit threshold.  Pallas-regime constants are likewise not modeled:
-the fused kernel only wins for bf16 heads under block sampling (+21%),
-a regime the planner never recommends (int8 dominates it by ~1.3x).
+Two-level heads (an int8 "hot" level plus a bf16 "warm" one) are dominated
+under this model: storage levels are totally ordered by stream cost, and
+every column that clears the bf16 break-even clears the int8 one, so
+widening the int8 head always beats adding a bf16 level.
 """
 
 from __future__ import annotations
@@ -41,11 +33,14 @@ from dataclasses import dataclass
 
 import numpy as np
 
-#: measured sustained dense-load HBM rate on v5e through this runtime
-#: (tools/bench_components.py, bench_layout_sweep.py round 2)
-STREAM_BYTES_PER_S = 4.3e11
-#: measured serialized gather/scatter cost per element-op (round 2)
-ELEM_OP_S = 9.6e-9
+#: sustained rate of the head stream: two passes over an int8 (8192,
+#: 32768) block per solver step (forward matmul + outer product) in 460 us
+#: as XLA compiles them — chip_smoke.py `head_step`, NVIDIA H100 80GB HBM3
+#: at a 400 W power limit
+STREAM_BYTES_PER_S = 1.166e12
+#: BlockCOO tail cost per element-op at 262144 entries per block of 8192
+#: rows — chip_smoke.py `tail_element_cost`, same card and power limit
+ELEM_OP_S = 7.04e-11
 #: element-ops per tail entry per step: fwd gather + fwd scatter +
 #: outer gather + outer scatter
 TAIL_OPS_PER_ENTRY = 4
@@ -69,7 +64,7 @@ def plan_layout(
     batch_size: int = 8192,
     head_itemsize: int = 1,
     g_sum_refresh_every: int = 8,
-    hbm_budget: float = 12e9,
+    hbm_budget: float = 24e9,
     stream_bytes_per_s: float = STREAM_BYTES_PER_S,
     elem_op_s: float = ELEM_OP_S,
     max_head_cap: int | None = None,
@@ -78,7 +73,10 @@ def plan_layout(
 
     `head_itemsize` is the storage itemsize of the head (1 for int8, 2 for
     bfloat16, 4 for float32 — pass what you will pass as
-    `hybrid_head_dtype`).  `hbm_budget` caps the resident head bytes.
+    `hybrid_head_dtype`).  `hbm_budget` caps the resident head bytes: by
+    default 24 GB, under a third of an 80 GB card, because JAX allocates
+    three quarters of the card and ingestion holds about two copies of the
+    head at once (row shuffle) next to the tail and the solver state.
     """
     x = x.tocsr()
     n, p = x.shape

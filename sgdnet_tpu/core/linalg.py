@@ -1,6 +1,6 @@
 """Core numeric kernels (pure jax.numpy, stateless).
 
-TPU-native equivalents of the reference's scalar math helpers
+Accelerator equivalents of the reference's scalar math helpers
 (reference src/math.h:25-199): logsumexp, log-spaced sequences, column
 mean/standard-deviation with the reference's population-SD and
 zero-variance-guard semantics, standardization, clamping, and class

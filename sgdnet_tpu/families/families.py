@@ -1,10 +1,10 @@
 """GLM response families.
 
-TPU-native re-design of the reference's Family hierarchy
+Accelerator re-design of the reference's Family hierarchy
 (reference src/families.h:26-410).  Each family exposes *batched*,
 jit-safe loss/gradient kernels operating on (B, k) blocks of linear
 predictors — the per-sample scalar methods of the reference become
-vectorized VPU ops, and everything feeding the MXU stays matmul-shaped.
+vectorized elementwise ops, and everything else stays matmul-shaped.
 
 Internal response encoding (host-side `encode`):
     gaussian    y -> (n, 1) float

@@ -36,10 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from sgdnet_tpu.core.sparse import HybridCSR, PaddedCSR
 from sgdnet_tpu.families import get_family
@@ -289,10 +286,7 @@ def _run_folds(
         P(None), P(), P(), P(), P(None),
         rep(pf), rep(box_lo), rep(box_hi), rep(offs),
     )
-    try:
-        fn = shard_map(local, mesh=mesh, in_specs=spec, out_specs=P(FOLD_AXIS, None), check_vma=False)
-    except TypeError:
-        fn = shard_map(local, mesh=mesh, in_specs=spec, out_specs=P(FOLD_AXIS, None), check_rep=False)
+    fn = shard_map(local, mesh=mesh, in_specs=spec, out_specs=P(FOLD_AXIS, None), check_vma=False)
     return fn(
         x, y_enc, fold_train_w, fold_test, lambdas, mix, top_sq_hint, tol, key,
         pf, box_lo, box_hi, offs,
@@ -313,7 +307,7 @@ def parallel_fold_scores(
     # dropped these; int8/bf16 heads in particular change the fitted design)
     hybrid=None, hybrid_coverage: float = 0.9, hybrid_max_head=16384,
     hybrid_memory_budget: float = 2e9, hybrid_head_dtype=None,
-    sampling=None, g_sum_refresh_every: int = 1, use_pallas=None,
+    sampling=None, g_sum_refresh_every: int = 1,
     # inert here given the lambda path is fixed by the full-data fits
     nlambda: int = 100, lambda_min_ratio=None, feature_names=None,
     # explicitly unsupported in the traced fold program
@@ -528,9 +522,6 @@ def parallel_fold_scores(
         batch_size=batch_size, max_iter=maxit, fit_intercept=intercept,
         intercept_decay=float(intercept_decay), sparse_mode=sparse_mode,
         sampling=sampling, g_sum_refresh_every=g_sum_refresh_every,
-        # no auto-on here: the fused head kernel is untested under the
-        # fold-mapped program; honor an explicit opt-in only
-        use_pallas=bool(use_pallas),
     )
 
     fold_w_dev = jnp.asarray(fold_w, dtype)

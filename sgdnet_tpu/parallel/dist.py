@@ -15,8 +15,9 @@ single-device minibatch SAGA with global batch B_local * n_devices drawn
 stratified-by-shard, so the fixed point (and the 1e-3 coefficient contract)
 is unchanged while throughput scales with the mesh.
 
-Collectives ride ICI via XLA's psum; there is no parameter server and no
-host round-trip inside the path: the entire lambda path (while-loop epochs
+Collectives are XLA psums (NCCL all-reduces on GPUs; every card of a host
+reaches every other over NVLink, so the mesh stays 1-D); there is no
+parameter server and no host round-trip inside the path: the entire lambda path (while-loop epochs
 included) runs as one shard_mapped computation per device.
 """
 
@@ -29,10 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from sgdnet_tpu.core.sparse import HybridCSR, PaddedCSR
 from sgdnet_tpu.solver.saga import PathResults, SagaState, SolverConfig, fit_path
@@ -205,8 +203,5 @@ def fit_path_sharded(
             offs=offs_l, pf=pf_l, box=box_l,
         )
 
-    try:  # jax >= 0.8 uses check_vma; older versions check_rep
-        fn = shard_map(local_fit, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False)
-    except TypeError:
-        fn = shard_map(local_fit, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=False)
+    fn = shard_map(local_fit, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False)
     return fn(x, y, weights, xc, gammas, l1s, l2s, tol, key, state0, offs, pf, box)

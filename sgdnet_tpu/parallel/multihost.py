@@ -1,17 +1,17 @@
 """Multi-host execution helpers.
 
-On a TPU pod slice, each host runs the same program under
+On a multi-host cluster, each host runs the same program under
 `jax.distributed`; `init_multihost()` wires the processes together and
-`global_data_mesh()` builds the 1-D 'data' mesh over ALL devices in the
-slice.  The data-parallel SAGA layer (parallel/dist.py) is
+`global_data_mesh()` builds the 1-D 'data' mesh over ALL devices of all
+hosts.  The data-parallel SAGA layer (parallel/dist.py) is
 topology-agnostic: rows and gradient memory shard over the global mesh and
-the per-step psum rides ICI within the slice (DCN across slices is handled
-by the same collective — see jax.distributed docs).
+the per-step psum spans every device, whichever link joins them.
 
-Exercised two ways without a pod slice: virtual-device sharding tests
+Exercised two ways without a cluster: virtual-device sharding tests
 (tests/test_parallel.py) and a TRUE multi-process run — two OS processes,
 4 virtual CPU devices each, wired by `jax.distributed` with gloo collectives
-standing in for ICI (tests/test_multihost.py, tools/multiprocess_demo.py) —
+standing in for the interconnect (tests/test_multihost.py,
+tools/multiprocess_demo.py) —
 which runs this exact module end-to-end and matches the single-process fit.
 """
 
@@ -23,8 +23,8 @@ from sgdnet_tpu.parallel.dist import AXIS, make_mesh
 
 
 def init_multihost(coordinator_address: str | None = None, num_processes: int | None = None, process_id: int | None = None):
-    """Initialize jax.distributed (no-op if already initialized or if
-    running single-process with auto TPU detection)."""
+    """Initialize jax.distributed (no-op if already initialized).  Without
+    a cluster manager, pass all three arguments."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

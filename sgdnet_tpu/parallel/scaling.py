@@ -4,8 +4,8 @@ The BASELINE.md target is >= 80% nnz/s efficiency from 1 host to N hosts on
 a sparse binomial workload.  This harness runs the same sharded SAGA
 workload over growing sub-meshes and reports throughput and efficiency.
 
-On real multi-chip hardware the psum rides ICI and the numbers are
-meaningful; under `--xla_force_host_platform_device_count` virtual devices
+On real multi-device hardware the psum crosses the interconnect and the
+numbers are meaningful; under `--xla_force_host_platform_device_count` virtual devices
 (the only option in a single-chip environment) the harness validates the
 mechanism and the collective layout, not real interconnect scaling —
 flagged in the output.
@@ -81,15 +81,12 @@ def measure_scaling(
             penalty,
             config,
         )
-        out = fit_path_sharded(x, y, w, None, *args, mesh=mesh)
-        float(jnp.sum(out[0].w))  # scalar readback: block_until_ready can
-        # return before execution finishes on relayed backends
+        jax.block_until_ready(fit_path_sharded(x, y, w, None, *args, mesh=mesh))
         best = float("inf")
         for r in range(1, 4):
             a = args[:4] + (jax.random.PRNGKey(seed + r),) + args[5:]
             t0 = time.perf_counter()
-            out = fit_path_sharded(x, y, w, None, *a, mesh=mesh)
-            float(jnp.sum(out[0].w))
+            jax.block_until_ready(fit_path_sharded(x, y, w, None, *a, mesh=mesh))
             best = min(best, time.perf_counter() - t0)
         results[nd] = nnz * epochs / best
 

@@ -1,6 +1,6 @@
 """Penalty (regularizer) objects.
 
-TPU-native re-design of the reference's per-feature penalty functors
+Accelerator re-design of the reference's per-feature penalty functors
 (reference src/penalties.h:27-79).  The reference fuses the gradient-average
 step with the prox one feature-column at a time inside the sequential inner
 loop; here a penalty is a *whole-matrix* proximal operator applied once per

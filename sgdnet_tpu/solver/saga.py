@@ -1,6 +1,6 @@
-"""Batched SAGA engine for TPU.
+"""Batched SAGA engine.
 
-TPU-native re-design of the reference's sequential SAGA inner loops
+Accelerator re-design of the reference's sequential SAGA inner loops
 (reference src/saga-dense.h:100-224 and src/saga-sparse.h:195-383).
 
 Design notes — why this is not a translation
@@ -12,11 +12,12 @@ catch-up so untouched features skip their prox steps
 (reference src/saga-sparse.h:76-155, 229-240).  Both exist because touching
 all p features per sample is expensive on a scalar CPU.
 
-On TPU the economics invert: a dense (k, p) elementwise decay + prox costs
-almost nothing next to the matmuls, while serialized per-sample updates
-waste the MXU entirely.  So the engine here does *minibatch SAGA*: each
-step takes B samples, computes their linear predictors and the rank-B
-coefficient update as two MXU matmuls, and applies the L2 decay and prox
+On an accelerator the economics invert: a dense (k, p) elementwise decay +
+prox costs almost nothing next to the matmuls, while serialized
+per-sample updates leave the matrix units idle.  So the engine here does
+*minibatch SAGA*: each step takes B samples, computes their linear
+predictors and the rank-B coefficient update as two matmuls, and applies
+the L2 decay and prox
 densely once per step.  No wscale, no lag tables — their closed-form
 algebra is exactly what the dense decay computes directly.
 
@@ -37,7 +38,7 @@ RNG): no duplicate index ever lands in one batch, which keeps the
 
 Sparse matrices are handled in padded-CSR form with two strategies:
   * 'densify' — scatter the B rows into a dense (B, p) block, then the
-    dense MXU path (best for moderate p);
+    dense matmul path (best for moderate p);
   * 'gather'  — gather w columns for the forward pass and scatter-add the
     rank-B update (best for very large p).
 Standardized sparse data stays scale-only, with centering carried as the
@@ -55,7 +56,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from sgdnet_tpu.core.sparse import HybridCSR, PaddedCSR
+from sgdnet_tpu.core.sparse import HybridCSR, PaddedCSR, int8_matmul, int8_tmatmul
 from sgdnet_tpu.families.families import Family
 from sgdnet_tpu.penalties.penalties import Penalty
 
@@ -98,39 +99,31 @@ class SolverConfig:
     #: x / y / weights / g_mem are sharded over this axis, w / g_sum are
     #: replicated, and batch statistics are psum-reduced (see parallel/dist.py)
     axis_name: str | None = None
-    #: use the fused Pallas head-step kernel (solver/pallas_kernels.py) for
-    #: the dense / hybrid-head part of each step (float32 only; shapes must
-    #: be supported — gated automatically in _make_step)
-    use_pallas: bool = False
     #: unroll factor for the per-epoch scan over batches (amortizes fixed
     #: per-step costs at the price of compile time)
     scan_unroll: int = 1
     #: batch selection: "permutation" (fresh row permutation per epoch,
     #: gathers) or "block" (fixed contiguous blocks in random order —
-    #: streams HBM, ~25% faster epochs on TPU; fit() pre-shuffles rows once
-    #: so blocks are random samples)
+    #: contiguous reads instead of row gathers; fit() pre-shuffles rows
+    #: once so blocks are random samples)
     sampling: str = "permutation"
-    #: matmul precision: "highest" = true-f32 MXU passes (default; TPU's
-    #: default bf16 precision loses ~1e-2 on large logits), "default" = fast
+    #: matmul precision: "highest" = full float32 products (default; a
+    #: reduced-precision float32 product — TF32 on the GPU — keeps about
+    #: three decimal digits and loses ~1e-2 on large logits), "default" =
+    #: the backend's fast mode
     matmul_precision: str = "highest"
     #: optimization barrier between steps (debug/experiment knob: prevents
-    #: any cross-step fusion; measured neutral on TPU)
+    #: any cross-step fusion)
     step_barrier: bool = False
     #: in-program oscillation recovery: a lambda that hits max_iter with a
     #: final relative change far above tol (the expected-smoothness step
-    #: measurably oscillates where the active set densifies mid-path —
-    #: tools/probe_gamma_depth.py) is retried once from the same warm-start
+    #: can oscillate where the active set densifies mid-path —
+    #: tests/test_backoff.py) is retried once from the same warm-start
     #: state with the step halved; the retry is kept only if it does better,
     #: and a winning halving sticks for deeper lambdas.  Runs inside the
     #: jitted path program, so the DEFAULT single-dispatch path recovers
     #: without any user-visible knob
     step_backoff: bool = True
-    #: run whole epochs as one Pallas kernel with the dataset VMEM-resident
-    #: (solver/epoch_kernel.py) — the small-problem latency path.  fit()
-    #: gates this on dense f32 inputs, block sampling, k <= 8, no
-    #: offsets/pf/box, and everything fitting the VMEM budget; measured
-    #: ~2.7x on in-path time for abalone-scale fits
-    use_epoch_kernel: bool = False
 
 
 def _psum(v, config: SolverConfig):
@@ -155,8 +148,8 @@ def init_state(n_pad: int, n_features: int, n_classes: int, dtype) -> SagaState:
 #
 # Batch selection `sel` is either an int32 index vector (a slice of the
 # per-epoch permutation — row gather) or a scalar block start (contiguous
-# `dynamic_slice` — measurably faster on TPU because it streams HBM instead
-# of gathering; see SolverConfig.sampling).
+# `dynamic_slice`, which reads device memory in order instead of
+# gathering rows; see SolverConfig.sampling).
 
 
 def _rows(a, sel, B: int):
@@ -221,16 +214,15 @@ def _batch_predict(x, xc, w, sel, B: int):
         d = x.n_head
         hb = _rows(x.head, sel, B)  # (B, D)
         if hb.dtype == jnp.int8:
-            # int8 head: per-column scales fold into w (lp_b = q_b . (s*w)),
-            # the MXU runs bf16 on the exactly-representable int8 values, and
-            # the int8 bytes are the only HBM stream — quarter of f32
-            wh = (w[:, :d] * x.head_scale.astype(w.dtype)).astype(jnp.bfloat16)
-            lp = jnp.dot(hb.astype(jnp.bfloat16), wh.T, preferred_element_type=w.dtype)
+            # int8 head: per-column scales fold into w (lp_b = q_b . (s*w));
+            # the int8 bytes are the only device-memory stream — a quarter
+            # of f32 (core/sparse.py int8_matmul)
+            lp = int8_matmul(hb, (w[:, :d] * x.head_scale.astype(w.dtype)).T, acc=w.dtype)
         else:
-            # bf16 head: feed the MXU in bf16 but accumulate in w's dtype —
-            # halves the dominant HBM stream and doubles the MXU rate
+            # bf16 head: multiply in bf16 but accumulate in w's dtype —
+            # halves the dominant device-memory stream
             wh = w[:, :d] if w.dtype == hb.dtype else w[:, :d].astype(hb.dtype)
-            lp = jnp.dot(hb, wh.T, preferred_element_type=w.dtype)  # MXU
+            lp = jnp.dot(hb, wh.T, preferred_element_type=w.dtype)
         if _use_blk_tail(x, sel, B):
             lp = lp + _coo_batch_predict(x.blk_tail, w, sel // B, B)
         else:
@@ -264,13 +256,12 @@ def _batch_outer(x, xc, g_change, sel, B: int, sparse_mode: str):
         d = x.n_head
         hb = _rows(x.head, sel, B)  # (B, D)
         if hb.dtype == jnp.int8:
-            gc = g_change.astype(jnp.bfloat16)
-            head_corr = jnp.dot(
-                gc.T, hb.astype(jnp.bfloat16), preferred_element_type=g_change.dtype
-            ) * x.head_scale.astype(g_change.dtype)[None, :]
+            head_corr = int8_tmatmul(g_change, hb, acc=g_change.dtype) * x.head_scale.astype(
+                g_change.dtype
+            )[None, :]
         else:
             gc = g_change if g_change.dtype == hb.dtype else g_change.astype(hb.dtype)
-            head_corr = jnp.dot(gc.T, hb, preferred_element_type=g_change.dtype)  # MXU
+            head_corr = jnp.dot(gc.T, hb, preferred_element_type=g_change.dtype)
         if _use_blk_tail(x, sel, B):
             corr = _coo_batch_outer(x.blk_tail, g_change, sel // B)
         else:
@@ -328,74 +319,6 @@ def _dataset_loss(x, y, weights, xc, w, intercept, family: Family, config: Solve
 def _make_step(x, y, weights, xc, w_total, family: Family, penalty: Penalty, config: SolverConfig, offs=None, pf=None, box=None):
     B = config.batch_size
 
-    # fused Pallas head kernel: block sampling only (the scalar-prefetch
-    # grid needs a block start; the round-1 slice-fed variant always lost to
-    # XLA because pallas_call is opaque to slice fusion, and was removed),
-    # f32/bf16 dense or hybrid heads with supported tiles
-    use_pallas = False
-    if config.use_pallas and config.sampling == "block" and not isinstance(x, PaddedCSR):
-        from sgdnet_tpu.solver.pallas_kernels import supported
-
-        head = x.head if isinstance(x, HybridCSR) else x
-        if head.dtype in (jnp.float32, jnp.bfloat16) and supported(
-            B, head.shape[1], family.n_classes, head.dtype
-        ):
-            use_pallas = True
-            pallas_interpret = jax.default_backend() != "tpu"
-
-    def step_pallas(state: SagaState, carry_scalars, sel):
-        from sgdnet_tpu.solver.pallas_kernels import fused_head_step_at
-
-        gamma, l1, l2 = carry_scalars
-        yb = _rows(y, sel, B)
-        wb = _rows(weights, sel, B)
-        g_mem_b = _rows(state.g_mem, sel, B)
-
-        if isinstance(x, HybridCSR):
-            d = x.n_head
-            head_arr = x.head
-            if _use_blk_tail(x, sel, B):
-                lp_extra = _coo_batch_predict(x.blk_tail, state.w, sel // B, B)
-            else:
-                lp_extra = _csr_batch_predict(x.tail, state.w, sel, B)
-            w_head = state.w[:, :d]
-        else:
-            d = x.shape[1]
-            head_arr = x
-            lp_extra = jnp.zeros((B, family.n_classes), jnp.promote_types(x.dtype, jnp.float32))
-            w_head = state.w
-        lp_extra = lp_extra + state.intercept
-        if offs is not None:
-            lp_extra = lp_extra + _rows(offs, sel, B)
-        if xc is not None:
-            lp_extra = lp_extra - jnp.dot(state.w, xc.astype(state.w.dtype))
-
-        # block sampling: feed the kernel the FULL head + a scalar-prefetch
-        # block offset.  pallas_call is opaque to XLA slice fusion, so
-        # slicing the block out first would materialize a (B, D) copy per
-        # step and triple HBM traffic; the prefetch variant DMAs each
-        # (Bt, D) tile exactly once — the one-pass schedule that makes this
-        # kernel beat XLA's two passes (+21% epoch throughput at the bf16
-        # winning config, tools/bench_layout_sweep.py).
-        g, corr_head = fused_head_step_at(
-            head_arr, sel, w_head, lp_extra, yb, g_mem_b, wb, B, family.name,
-            interpret=pallas_interpret,
-        )
-        g_change = g - g_mem_b
-        g_mem = _set_rows(state.g_mem, sel, g, B)
-
-        if isinstance(x, HybridCSR):
-            if _use_blk_tail(x, sel, B):
-                corr = _coo_batch_outer(x.blk_tail, g_change, sel // B)
-            else:
-                corr = _csr_batch_outer(x.tail, g_change, sel, B)
-            corr = corr.at[:, :d].add(corr_head)
-            if xc is not None:  # xc is zero on head columns
-                corr = corr - jnp.outer(jnp.sum(g_change, axis=0), xc.astype(corr.dtype))
-        else:
-            corr = corr_head
-        return _finish_step(state, gamma, l1, l2, wb, g_change, g_mem, corr)
-
     def step_xla(state: SagaState, carry_scalars, sel):
         gamma, l1, l2 = carry_scalars
         yb = _rows(y, sel, B)
@@ -415,8 +338,9 @@ def _make_step(x, y, weights, xc, w_total, family: Family, penalty: Penalty, con
         bw = jnp.maximum(_psum(jnp.sum(wb), config), 1e-12)
         sum_gc = _psum(jnp.sum(g_change, axis=0), config)  # (k,)
 
-        # (k, p); under data-parallel execution this psum is the single
-        # collective per step — the rank-B update rides ICI once per batch
+        # (k, p); under data-parallel execution this psum is the largest
+        # collective per step — the rank-B update crosses devices once per
+        # batch
         corr = _psum(corr, config)
         grad_est = corr / bw + state.g_sum
         # per-feature penalty factors scale both the L2 decay and the prox
@@ -455,7 +379,7 @@ def _make_step(x, y, weights, xc, w_total, family: Family, penalty: Penalty, con
             new_state = jax.lax.optimization_barrier(new_state)
         return new_state
 
-    return step_pallas if use_pallas else step_xla
+    return step_xla
 
 
 def _refresh_g_sum(x, xc, weights, w_total, state: SagaState, config: SolverConfig) -> SagaState:
@@ -486,8 +410,8 @@ def _make_epoch(x, y, weights, xc, w_total, family, penalty, config: SolverConfi
             # distinct sample order per shard
             key = jax.random.fold_in(key, jax.lax.axis_index(config.axis_name))
         if config.sampling == "block":
-            # contiguous blocks in random order: HBM streams instead of row
-            # gathers (rows are pre-shuffled once host-side by fit())
+            # contiguous blocks in random order: in-order reads instead of
+            # row gathers (rows are pre-shuffled once by fit())
             xs = jax.random.permutation(key, n_batches) * B
         else:
             xs = jax.random.permutation(key, n_pad).reshape(n_batches, B)
@@ -578,25 +502,7 @@ def fit_path(
 
 def _fit_path_impl(x, y, weights, xc, gammas, l1s, l2s, tol, key, state0, family, penalty, config, offs=None, pf=None, box=None):
     w_total = jnp.maximum(_psum(jnp.sum(weights), config), 1e-12)
-    if config.use_epoch_kernel:
-        # small-problem path: state rides in the kernel's padded layout
-        # across the whole lambda scan; pads are zero-preserved, so the
-        # convergence check below works unchanged on the padded tiles.
-        # Offsets and penalty factors ride as v2 kernel operands (box
-        # limits still fall back to the XLA step path — fit() gates that).
-        from sgdnet_tpu.solver import epoch_kernel as _ek
-
-        _k, _p = state0.w.shape
-        epoch_fn = _ek.build(
-            x, y, weights, w_total, family, penalty, config,
-            interpret=jax.default_backend() != "tpu",
-            offs=offs, pf=pf,
-        )
-        state0 = _ek.pad_state(state0, _p)
-        unpad = partial(_ek.unpad_state, k=_k, p=_p)
-    else:
-        epoch_fn = _make_epoch(x, y, weights, xc, w_total, family, penalty, config, offs=offs, pf=pf, box=box)
-        unpad = lambda s: s
+    epoch_fn = _make_epoch(x, y, weights, xc, w_total, family, penalty, config, offs=offs, pf=pf, box=box)
     max_iter = config.max_iter
 
     def fit_one(state: SagaState, gamma, l1, l2, lam_key, tol_eff=None):
@@ -627,13 +533,10 @@ def _fit_path_impl(x, y, weights, xc, gammas, l1s, l2s, tol, key, state0, family
             # final_change = +inf, and let fit_one clamp it to max_iter so
             # the lambda lands as code 1 for the caller and the step-backoff
             # detector.
-            b_arr = (
-                state.intercept if hasattr(state, "intercept") else state.ivec[0]
-            )  # epoch-kernel _PadState carries the intercept in ivec row 0
             finite = (
                 jnp.isfinite(max_size)
                 & jnp.isfinite(max_change)
-                & jnp.all(jnp.isfinite(b_arr))
+                & jnp.all(jnp.isfinite(state.intercept))
             )
             all_zero = (max_size == 0.0) & (max_change == 0.0)
             no_change = finite & (max_size != 0.0) & (max_change <= t_conv * max_size)
@@ -662,26 +565,23 @@ def _fit_path_impl(x, y, weights, xc, gammas, l1s, l2s, tol, key, state0, family
     # fit() can warn when the clamp touched the reported solution
     track_clamp_gap = family.loss_report.__func__ is not Family.loss_report
 
-    def _dev(st, report=True):
-        s = unpad(st)  # identity unless the epoch kernel's padded layout is in play
+    def _dev(s, report=True):
         return 2.0 * _dataset_loss(
             x, y, weights, xc, s.w, s.intercept, family, config, offs=offs, report=report
         )
 
-    def _lmean(st):
+    def _lmean(s):
         """Weighted mean SOLVER loss at a state (one data pass)."""
-        s = unpad(st)
         return _dataset_loss(
             x, y, weights, xc, s.w, s.intercept, family, config, offs=offs, report=False
         ) / w_total
 
-    def _objective(st, lmean, l1, l2):
+    def _objective(s, lmean, l1, l2):
         """Penalized objective: mean loss + l1*P1(w) + l2/2*||w||_pf^2.
         Attempts MUST be compared on this, not on deviance — a smaller-step
         under-shrunk iterate can have lower deviance while being farther
         from the penalized solution (measured: sharded poisson cascade,
         tests/test_poisson.py::test_sharded_equals_single)."""
-        s = unpad(st)
         sq = s.w * s.w
         if pf is not None:
             sq = sq * pf
@@ -800,8 +700,7 @@ def _fit_path_impl(x, y, weights, xc, gammas, l1s, l2s, tol, key, state0, family
                 gap = dev - _dev(state, report=False)
             else:
                 gap = jnp.zeros((), dev.dtype)
-        s_real = unpad(state)
-        out = (s_real.w, s_real.intercept, dev, it, code.astype(jnp.int32), losses, gap, rel)
+        out = (state.w, state.intercept, dev, it, code.astype(jnp.int32), losses, gap, rel)
         return (state, n_iter + att_it, bk), out
 
     n_lambda = gammas.shape[0]
@@ -811,4 +710,4 @@ def _fit_path_impl(x, y, weights, xc, gammas, l1s, l2s, tol, key, state0, family
         (gammas, l1s, l2s, jnp.arange(n_lambda)),
     )
     results = PathResults(*outs)
-    return unpad(state), n_iter, results
+    return state, n_iter, results

@@ -3,7 +3,7 @@
 The reference's serial step size is gamma = 1 / (2L + min(L, 2n*l2)) with
 L = (max_i ||x_i||^2 + fit_intercept) * L_scaling + l2
 (reference src/utils.h:31-51).  That is calibrated for B = 1 sample per
-update.  A TPU solver takes B samples per step, and simply reusing the
+update.  The batched solver takes B samples per step, and simply reusing the
 serial gamma would move ~B times less per epoch.  We instead use the
 expected-smoothness step size for minibatch SAGA (Gazagnadou, Gower &
 Salmon, "Optimal mini-batch and step sizes for SAGA", 2019): the batch
@@ -14,7 +14,7 @@ Lipschitz constant interpolates between L_max (B = 1) and L_full (B = n),
 and since L_full = lambda_max(X^T X) / n is typically far smaller than
 L_max = max_i ||x_i||^2, large batches earn proportionally larger steps —
 this is what lets the batched solver converge in a comparable number of
-epochs while feeding the MXU.  At B = 1 the formula degrades exactly to
+epochs while keeping each step matmul-shaped.  At B = 1 the formula degrades exactly to
 the reference's.
 """
 
@@ -92,7 +92,7 @@ def saga_step_sizes(
     """Per-lambda step sizes; serial formula at B = 1, minibatch otherwise."""
     fi = 1.0 if fit_intercept else 0.0
     # widest dtype actually available: f64 only when x64 is enabled (avoids
-    # the jax truncation warning storm on the f32 TPU backend)
+    # the jax truncation warning storm on an x64-disabled backend)
     acc = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     n = jnp.asarray(n_samples, acc)
     B = float(batch_size)

@@ -1,6 +1,6 @@
 """In-program step-size oscillation recovery (SolverConfig.step_backoff).
 
-Pins the failure shape measured on chip by tools/probe_gamma_depth.py —
+Pins the failure shape seen on the accelerator at bench scale —
 mid-path lambdas where the expected-smoothness step is too large hit
 max_iter with final_change far above tol (or diverge outright) — and the
 round-5 recovery: fit_path retries a suspicious lambda in-program with the

@@ -1,4 +1,4 @@
-"""float32 solver-path tests — the default dtype on TPU.
+"""float32 solver-path tests — the default dtype on the GPU.
 
 The f64 suites verify exact semantics against oracles; these verify that
 the f32 path (with per-epoch exact g_sum refresh to kill accumulation

@@ -5,7 +5,7 @@ import pytest
 import scipy.sparse as sp
 
 import sgdnet_tpu as st
-from sgdnet_tpu.core.layout import plan_layout
+from sgdnet_tpu.core.layout import ELEM_OP_S, STREAM_BYTES_PER_S, TAIL_OPS_PER_ENTRY, plan_layout
 
 
 def _zipf_sparse(n=5000, p=2000, nnz_row=20, seed=0):
@@ -31,7 +31,7 @@ def test_plan_break_even_is_optimal_on_grid():
     def cost(d):
         d = min(max(d, 1), x.shape[1])
         tail = total - cum[d - 1]
-        return passes * n_pad * d / 4.3e11 + tail * 4 * 9.6e-9
+        return passes * n_pad * d / STREAM_BYTES_PER_S + tail * TAIL_OPS_PER_ENTRY * ELEM_OP_S
 
     c0 = cost(plan.max_head)
     assert c0 <= cost(plan.max_head // 2) + 1e-12

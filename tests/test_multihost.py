@@ -3,7 +3,8 @@
 This upgrades the multi-host claim beyond virtual devices: two OS processes
 (4 virtual CPU devices each) are wired with `jax.distributed.initialize`
 and run one data-parallel fit over the global mesh — the same GSPMD program
-a pod slice runs, with gloo collectives standing in for ICI.  The result
+a multi-host cluster runs, with gloo collectives standing in for the
+interconnect.  The result
 must match a single-process fit with the same global batch.
 """
 

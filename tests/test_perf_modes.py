@@ -7,8 +7,7 @@ Two opt-in throughput knobs:
     changes, so coefficients must match the default at the usual tolerance.
   * `hybrid_head_dtype=bfloat16` — the dense head of a HybridCSR layout is
     stored in bf16 (matmuls still accumulate in f32).  This perturbs the
-    data by ~0.4% relative, so the contract intentionally loosens to ~1e-2
-    (validated on-chip by tools/validate_bf16.py against the f32 solve).
+    data by ~0.4% relative, so the contract intentionally loosens to ~1e-2.
 """
 
 import numpy as np

@@ -143,4 +143,8 @@ def test_refit_args_carry_layout_options():
     assert args["g_sum_refresh_every"] == 3
     assert args["sampling"] == "permutation"
     assert args["sparse_mode"] == "densify"
-    assert "hybrid" in args and "mesh" in args and "use_pallas" in args
+    assert "hybrid" in args and "mesh" in args and "hybrid_head_dtype" in args
+    # the refit replays exactly fit()'s options: nothing fit() does not take
+    import inspect
+
+    assert set(args) <= set(inspect.signature(st.fit).parameters)

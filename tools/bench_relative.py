@@ -2,20 +2,22 @@
 
 The rebuild of the reference's precomputed `benchmarks` artifact
 (reference data/benchmarks.rda + vignettes/benchmarks.Rmd:40-53): this
-framework (TPU) vs scikit-learn (CPU; coordinate descent for the gaussian
+framework (on the default JAX device, the GPU where there is one) vs scikit-learn (CPU; coordinate descent for the gaussian
 families — glmnet's own algorithm — and SAGA logistic for the link
 families), loss-vs-time at lambda = 1/n on the four bundled datasets.
 
 Writes docs/relative_benchmarks.png and prints a JSON summary per panel.
-Run from /root/repo on the TPU host:  python tools/bench_relative.py
+Run from the repo root:  python tools/bench_relative.py
 """
 
 import json
 import sys
 
+import os
+
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # series colors: validated categorical slots 1-2 (blue, orange)
 C_OURS = "#2a78d6"
@@ -25,6 +27,7 @@ MUTED = "#8a8a8a"
 
 
 def main():
+    import jax
     import matplotlib
 
     matplotlib.use("Agg")
@@ -50,7 +53,7 @@ def main():
             return np.maximum((c["losses"] - best) / span, 1e-9)
 
         ax.plot(ours["times"], gap(ours), color=C_OURS, lw=2,
-                marker="o", ms=3.5, label="sgdnet_tpu (1x v5e)")
+                marker="o", ms=3.5, label=f"sgdnet_tpu ({jax.devices()[0].device_kind})")
         ax.plot(sk["times"], gap(sk), color=C_SK, lw=2,
                 marker="o", ms=3.5, label="scikit-learn (CPU)")
         ax.set_xscale("log")

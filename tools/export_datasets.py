@@ -1,4 +1,4 @@
-"""Export the reference package's example datasets to .npz for the TPU framework.
+"""Export the reference package's example datasets to .npz for this framework.
 
 Reads /root/reference/data/{abalone,heart,wine,student}.rda (documented in
 reference R/data.R:40-191) and writes sgdnet_tpu/data/<name>.npz with:

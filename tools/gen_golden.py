@@ -3,7 +3,7 @@
 The reference's correctness strategy is same-input comparison against a
 reference implementation at 1e-3 (reference tests/testthat/setup.R:56-100);
 SURVEY §4(b) prescribes a *stored* golden-path oracle since R/glmnet is not
-available in the TPU environment.  This script computes, once, f64 oracle
+available in this environment.  This script computes, once, f64 oracle
 coefficient paths with scikit-learn (coordinate descent / SAGA at tight
 tolerance, plus closed forms) on the four bundled reference datasets over
 the alpha x standardize grid, and stores them as tests/golden/*.npz.

@@ -2,8 +2,8 @@
 
 Launches N worker processes, each owning 4 virtual CPU devices, wires them
 with `jax.distributed.initialize`, and runs one data-parallel `st.fit` over
-the global 'data' mesh — the same code path a TPU pod slice runs, with gloo
-standing in for ICI.  Process 0 saves the coefficient path; the launcher
+the global 'data' mesh — the same code path a multi-host cluster runs, with
+gloo standing in for the interconnect.  Process 0 saves the coefficient path; the launcher
 then refits single-process (same global batch) and reports the max
 coefficient difference.
 

@@ -2,7 +2,7 @@
 
 Used once, offline, to export the reference package's example datasets
 (/root/reference/data/*.rda -- abalone, heart, wine, student; documented in
-reference R/data.R:40-191) into .npz files that the TPU framework loads at
+reference R/data.R:40-191) into .npz files that this framework loads at
 runtime.  Supports only the SEXP types those files use: pairlists, symbols,
 character/integer/real/logical vectors, generic vectors (lists), and
 attributes (dim, dimnames, names, levels, class).
